@@ -10,7 +10,7 @@ frame. Because the mapped points depend on which local facet the boundary
 facet is (and on its stored orientation), facets are grouped by the tuple of
 cell-local vertex indices; each group has one static table and facets index
 into the stacked tables with a group id — keeping everything static-shaped
-and gather-friendly for TPU.
+and gather-friendly for the compiled kernels.
 """
 
 from __future__ import annotations

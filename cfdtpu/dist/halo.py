@@ -7,7 +7,7 @@ updates broadcast owner values before reads and REVERSE updates
 accumulate ghost contributions after assembly
 (/root/reference/src/solvers/stabilized_schur.py:137-142,168,175,237-252).
 
-TPU-native realization on the supernode layout (la/superell.py):
+Realization on the supernode layout (la/superell.py):
 
 - The Hilbert-ordered supernodes are partitioned into n_shards CONTIGUOUS
   ranges — the Hilbert order makes contiguous index ranges compact
@@ -49,7 +49,7 @@ import jax
 import jax.numpy as jnp
 from jax import ops as jox
 from jax.sharding import PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .partition import make_device_mesh
 
@@ -535,9 +535,14 @@ def build_halo_step(solver):
                         ),
                     )
                     sp_g = bsr.sp_vals(vals, inv_duu_g)  # replicated
+                    # The coarse operator is assembled, inverted and
+                    # applied in float64 whatever the solver's dtype:
+                    # its conditioning and its 1e-8 regularisation lie
+                    # below float32's resolution, and a float32 inverse
+                    # left every float32 Krylov solve at ksp_max_it.
                     A_c = jnp.zeros(
-                        (n_c, n_c), sp_g.dtype
-                    ).at[sp_aggr, sp_aggc].add(sp_g)
+                        (n_c, n_c), jnp.float64
+                    ).at[sp_aggr, sp_aggc].add(sp_g.astype(jnp.float64))
                     scale_c = jnp.max(jnp.abs(A_c))
                     # aggregates of padding-only supernodes have zero
                     # rows -> identity (their restricted residual is 0)
@@ -576,8 +581,8 @@ def build_halo_step(solver):
                         rc = jox.segment_sum(
                             r_p * pv_nodes, agg_local, num_segments=n_c
                         )
-                        rc = reduce(rc)
-                        zc = A_c_inv @ rc
+                        rc = reduce(rc).astype(A_c_inv.dtype)
+                        zc = (A_c_inv @ rc).astype(r_p.dtype)
                         return zc[agg_local] * pv_nodes
 
                     def S_loc(v_p):  # (L*g,)
@@ -698,7 +703,7 @@ def build_halo_step(solver):
                 P("shards"), P(), P(),
             ) + (P("shards"),) * len(sam_operands),
             out_specs=(P(), P(), P(), P(), P()),
-            check_rep=False,
+            check_vma=False,
         )
         return sharded(
             maps.pack_idx, maps.halo_src, maps.local_cols,

@@ -3,7 +3,7 @@
 Replaces the reference's MPI domain decomposition (implicit in dolfinx:
 every function space has a parallel index_map with ghosts, SURVEY.md §2.9;
 ghost updates at /root/reference/src/solvers/stabilized_schur.py:137-142,168,175,
-allreduce at src/scenario.py:272-281). TPU-native design, stage 1:
+allreduce at src/scenario.py:272-281). Design, stage 1:
 
 - **Element-sharded, dof-replicated**: cells (the FLOP-heavy element
   kernels) are partitioned across devices; each device scatter-adds its
@@ -24,7 +24,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh as DeviceMesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..forms import StabilizedNSForm
 

@@ -6,8 +6,8 @@ experiment mesh becomes a tree job chained to a geometry job with
 --dependency=afterok (:298-424), experiment solve becomes a job array
 with one combination per --job_idx plus optional --monitor/--watch
 (:426-560), simulate gets a VascuSynth pre-job dependency for tree
-scenarios (:562-628). On the TPU deployment each job runs the same
-single-program CLI (no mpirun; one process drives the chips via
+scenarios (:562-628). Here each job runs the same single-program CLI
+(no mpirun; one process drives the cards, several via
 jax.distributed), so the generated scripts invoke `python main.py ...`
 directly.
 

@@ -4,7 +4,7 @@ Each factory returns a per-facet kernel
     kernel(u_e, p_e, aux_e, coords_e, tabs, prm) -> r_u (nbu, dim)
 with tabs = dict(phi_u, dphi_u, phi_p, gdphi, normal, dS, h) — the facet
 quadrature tables built by StabilizedNSForm.add_facet_term. These are the
-TPU-native equivalents of the reference's `ds` measure terms:
+JAX equivalents of the reference's `ds` measure terms:
 
 - natural_correction: `p n·v - mu (nabla_grad u)^T n·v` on all exterior
   facets (stabilized_schur.py:79)

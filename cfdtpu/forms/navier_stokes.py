@@ -1,6 +1,6 @@
 """SUPG/PSPG/LSIC-stabilized incompressible Navier-Stokes residual.
 
-TPU-native equivalent of the reference's UFL weak forms
+JAX equivalent of the reference's UFL weak forms
 (/root/reference/src/solvers/stabilized_schur.py:67-123 for the
 Crank-Nicolson base form; stabilized_schur_bdf2.py:75-110 for BDF2):
 equal-order Pk-Pk velocity/pressure, SUPG + PSPG + LSIC stabilization with
@@ -45,14 +45,13 @@ def _asm_chunk(nc: int) -> int:
     """Element chunk size for assembly maps, 0 = no chunking.
 
     A full-mesh vmap of the element kernel materializes rank-5 jvp temps
-    like f32[nc, nbu, nq, d, d]; on TPU the (8, 128) tiling of the two
-    minor dims pads those ~19-28x, so at 631k cells (the ~950k-DOF DFG
-    mesh) the Jacobian build alone wants 17.7 GB of HBM temps for 1.4 GB
-    of payload and the compile OOMs (v5e: 15.75 GB). Chunking the map
-    (lax.map over chunks, vmap inside) bounds the temps by the chunk
-    size with no loss of parallel width at 64k elements per chunk.
-    Meshes at or below 2 chunks keep the single-vmap HLO so their cached
-    executables (the 106k bench) stay valid.
+    like f32[nc, nbu, nq, d, d], whose two tiny minor dims a tiled
+    memory layout may pad many-fold; at 631k cells (the ~950k-DOF DFG
+    mesh) those temps dominate the Jacobian build's memory. Chunking the
+    map (lax.map over chunks, vmap inside) bounds the temps by the chunk
+    size. The chunk size was chosen on earlier hardware; sizing it from
+    the GPU's compiled.memory_analysis() is open (ROADMAP A5). Meshes at
+    or below 2 chunks keep the single-vmap HLO.
     """
     c = int(os.environ.get("CFDTPU_ASM_CHUNK", "65536"))
     if c <= 0 or nc <= 2 * c:

@@ -32,9 +32,8 @@ def generate_dfg_mesh(
     res_min = (R / 6 if res_min is None else res_min) * res_scale
     res_max = (H / 13 if res_max is None else res_max) * res_scale
 
-    # disk cache (mesh/cache.py): keyed by the full sizing tuple; the
-    # TPU campaign retries re-pay this build (~20 s at res_scale 0.10)
-    # on every worker-flap recovery otherwise
+    # disk cache (mesh/cache.py): keyed by the full sizing tuple, so a
+    # repeated run skips the host build at large res_scale
     ckey = cache_path("dfg2d", (
         float(res_min), float(res_max), np.dtype(dtype).name,
         int(inlet_marker), int(outlet_marker), int(wall_marker),

@@ -6,7 +6,7 @@ solid from start/end points with radius_in/out, severity
 OUTLET=2 / WALL=3 / FLUID=4 (:12-15); curvature-based mesh sizing.
 
 The reference builds the solid with CadQuery and meshes it with gmsh —
-offline preprocessing tools absent from the TPU runtime image. Here the
+offline preprocessing tools absent from this runtime image. Here the
 same API surface runs fully natively: `generate_stenosis_geometry`
 returns the axis + radius-law description (all the information the
 lofted solid carries) and `mesh_and_export` tet-meshes it with the
@@ -108,7 +108,7 @@ def generate_stenosis_geometry(
     geometry description. The reference returns a CadQuery solid for
     gmsh to mesh offline; here the returned StenosisGeometry feeds the
     native implicit-union tet mesher in mesh_and_export, so the whole
-    pipeline runs in the TPU image with no CAD dependencies."""
+    pipeline runs with no CAD dependencies."""
     if slope >= 0.85:
         raise ValueError(
             "slope >= 0.85 produces a throat too steep to mesh at "

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import os
 
-import yaml
-
 
 def run(args) -> int:
+    # lazy: PyYAML is needed by this subcommand only, and importing the
+    # module must not require it
+    import yaml
+
     with open(args.config) as f:
         cfg = yaml.safe_load(f) or {}
 

@@ -5,7 +5,7 @@ The reference's pressure-block inner PCs are ASM/ILU/AMG under PETSc
 and stabilized_pcd.py:268-276; ASM at stabilized_schur.py:261-264).
 Jacobi-preconditioned inner sweeps (la/schur.py) are not h-robust: the
 outer iteration count grows with refinement, which is what caps the
-1M-DOF throughput target (PERF.md). This module is the TPU-native AMG
+1M-DOF throughput target (PERF.md). This module is the JAX AMG
 substitute: plain (unsmoothed) aggregation on the pressure node graph
 with piecewise-constant transfer, Galerkin coarse operators via sorted
 segment-sums, weighted-Jacobi smoothing, and a dense coarsest solve.
@@ -14,7 +14,7 @@ Everything structural (aggregates, coarse sparsity, Galerkin entry maps)
 is built once in numpy from the static node-BSR block graph
 (la/nodebsr.py); per-Newton-iteration value coarsening and the V-cycle
 itself are jit-compiled index arithmetic (segment_sum / gather), which
-is exactly the shape TPUs execute well.
+is exactly the shape XLA compiles into a few fused kernels.
 """
 
 from __future__ import annotations
@@ -393,8 +393,8 @@ class AMG:
     # -- per-PC-build value pass (jittable) -----------------------------
     def _build_sup(self, r, c, m):
         """Supernode maps + scalar placement positions for one level
-        (la/superell.py: the TPU gather is per-row bound, so level
-        matvecs gather g-wide supernode rows instead of scalars)."""
+        (la/superell.py: level matvecs gather g-wide supernode rows
+        instead of scalars)."""
         from .superell import SuperMaps
 
         maps = SuperMaps(r.astype(np.int64), c.astype(np.int64), m,
@@ -439,9 +439,9 @@ class AMG:
         row, col, m = self.coo[len(self.levels)]
         A = jnp.zeros((m, m), vals.dtype).at[row, col].set(vals)
         A = A + 1e-12 * jnp.max(jnp.abs(vals)) * jnp.eye(m, dtype=vals.dtype)
-        # dense INVERSE, not LU: the coarsest solve then is one MXU
-        # matmul per V-cycle instead of two sequential triangular solves
-        # (TPU-hostile); inverting once per PC build is cheap at m<=300
+        # dense INVERSE, not LU: the coarsest solve then is one dense
+        # matmul per V-cycle instead of two sequential triangular
+        # solves; inverting once per PC build is cheap at m<=300
         return out, jnp.linalg.inv(A)
 
     def _matvec(self, k, sup_vals, x):
@@ -555,7 +555,7 @@ class BlockAMG(AMG):
         # fine_smoother: optional la/ras.RASPrecond applied as the
         # finest-level smoother (coarser levels keep l1-Jacobi) — the
         # ASM/ILU-strength smoothing the reference's u-block sub-PCs get
-        # from PETSc (stabilized_schur.py:261-264), batched for the MXU
+        # from PETSc (stabilized_schur.py:261-264), as batched dense solves
         self.d = int(d)
         self.fine_smoother = fine_smoother
         super().__init__(row, col, n, coarse_size=coarse_size, **kw)

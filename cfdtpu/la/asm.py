@@ -32,7 +32,7 @@ def make_asm_precond(bsr, vals, bc_mask_flat, n_sub: int,
 
     Static maps (partition, local columns, diagonal slots) come from
     dist.halo.HaloMaps on the supernode graph; all subdomain solves are
-    batched with vmap — the TPU executes n_sub local sweeps as one
+    batched with vmap — the device executes n_sub local sweeps as one
     batched kernel, the moral equivalent of PETSc ASM's per-process
     subsolves (/root/reference/src/solvers/stabilized_schur.py:261-264).
     """

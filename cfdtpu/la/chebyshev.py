@@ -2,11 +2,11 @@
 
 The reference's inner sub-PCs are ASM/ILU/AMG under PETSc
 (/root/reference/src/solvers/stabilized_schur.py:261-264,
-ipcs_midpoint.py:102-110 BoomerAMG). On TPU the equivalent latency
+ipcs_midpoint.py:102-110 BoomerAMG). On an accelerator the equivalent latency
 killer is the *reduction* inside every inner GMRES iteration: each
 orthogonalization is a sequential all-reduce. A Chebyshev sweep needs
 NO dot products at run time — only matvecs and AXPYs, which pipeline on
-the VPU/MXU — the same reason hypre switches its smoothers to Chebyshev
+the device — the same reason hypre switches its smoothers to Chebyshev
 on accelerators. Spectrum bounds come from a short power iteration at
 preconditioner-build time (once per Newton step).
 

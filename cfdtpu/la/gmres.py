@@ -2,14 +2,14 @@
 
 Replaces the PETSc KSP FGMRES the reference drives at
 /root/reference/src/solvers/stabilized_schur.py:226-229 (fgmres, restart
-200, max_it 1000). TPU-first design choices:
+200, max_it 1000). Accelerator design choices:
 
 - Right-preconditioned *flexible* GMRES: the preconditioner may change
   between iterations (needed for inner-iterative Schur preconditioners).
 - Orthogonalization is CGS2 (classical Gram-Schmidt with one
   reorthogonalization): two (m+1, n) matvecs per iteration instead of a
   sequential modified-GS chain — the dominant work becomes large matmuls
-  that map straight onto the MXU, and it is as robust as MGS in practice.
+  that map onto dense matrix hardware, and it is as robust as MGS in practice.
 - Fixed-size Krylov buffers + lax.while_loop: static shapes, early exit.
 """
 

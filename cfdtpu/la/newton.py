@@ -87,11 +87,13 @@ def newton_solve(
             overrides make_precond. When absent, the Jacobian action is
             jax.linearize of F. NOTE: do NOT swap this default to jax.jvp —
             re-running the jvp primal inside the Krylov while_loop
-            miscompiles on TPU (silently produces a zero-progress solve);
+            has miscompiled (silently producing a zero-progress solve);
             linearize replays only the linear part and is also cheaper.
 
     Returns:
-        (x, stats) with stats = {newton_iters, ksp_iters, fnorm, f0norm,
+        (x, stats) with stats = {newton_iters, ksp_iters (total over the
+        Newton iterations), ksp_max_iters (the longest linear solve),
+        fnorm, f0norm,
         converged, ls_failures}.
     """
     p = params
@@ -112,11 +114,11 @@ def newton_solve(
         _, M_lagged = make_operator(x0)
 
     def cond(state):
-        x, f, fnorm, it, ksp_total, done, lsfail, eta = state
+        x, f, fnorm, it, ksp_total, ksp_max, done, lsfail, eta = state
         return jnp.logical_and(jnp.logical_not(done), it < p.max_it)
 
     def body(state):
-        x, f, fnorm, it, ksp_total, done, lsfail, eta = state
+        x, f, fnorm, it, ksp_total, ksp_max, done, lsfail, eta = state
 
         if OP_lagged is not None:
             matvec, M = OP_lagged
@@ -209,6 +211,7 @@ def newton_solve(
             nnew,
             it + 1,
             ksp_total + info["iters"],
+            jnp.maximum(ksp_max, info["iters"]),
             converged,
             lsfail + ls_failed.astype(jnp.int32),
             eta_new,
@@ -220,16 +223,17 @@ def newton_solve(
         f0norm,
         jnp.array(0),
         jnp.array(0),
+        jnp.array(0),
         f0norm <= ftol,
         jnp.array(0, jnp.int32),
         jnp.asarray(p.ew_eta0, f0norm.dtype),
     )
-    x, f, fnorm, iters, ksp_iters, done, lsfail, _eta = jax.lax.while_loop(
-        cond, body, init
-    )
+    (x, f, fnorm, iters, ksp_iters, ksp_max, done, lsfail,
+     _eta) = jax.lax.while_loop(cond, body, init)
     stats = {
         "newton_iters": iters,
         "ksp_iters": ksp_iters,
+        "ksp_max_iters": ksp_max,
         "fnorm": fnorm,
         "f0norm": f0norm,
         "converged": done,

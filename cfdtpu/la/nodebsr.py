@@ -21,7 +21,7 @@ apply_sub_block / jacobian_diagonal / n_u_flat) with the assembled
 `vals` passed where the PC passes A_cells, so make_schur_precond works
 unchanged. This is the PETSc "assembled AIJ vs matrix-free" switch
 (reference assembles: src/solvers/stabilized_schur.py:154,191) done the
-TPU way: block-regular, sorted segment reductions, no atomics.
+accelerator way: block-regular, sorted segment reductions, no atomics.
 """
 
 from __future__ import annotations
@@ -94,8 +94,9 @@ class NodeBSR:
         self.K = K = int(cnt.max())
 
         # supernode layout (la/superell.py): g consecutive (Hilbert-
-        # ordered) nodes per gathered row — the per-row-bound TPU gather
-        # then moves g*bs-wide rows. Fill overhead is repaid by streaming.
+        # ordered) nodes per gathered row — the gather then moves
+        # g*bs-wide rows. Whether the fill overhead is repaid on the GPU
+        # is open (ROADMAP A3).
         # g == 1 falls back to the round-1 per-node ELL layout (rows are
         # sorted, so each row's entries are contiguous; padding to
         # K = max blocks/row turns the matvec scatter into a dense

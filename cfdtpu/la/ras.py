@@ -3,27 +3,26 @@
 The reference preconditions its velocity block with GMRES+ASM sub-KSPs
 whose per-process subsolves are ILU factorizations
 (/root/reference/src/solvers/stabilized_schur.py:261-264, PETSc default
-sub_pc_type ilu). ILU's sequential triangular sweeps are TPU-hostile;
-this module delivers the same "strong local solve" ingredient the TPU
-way: the Hilbert-ordered node axis (mesh/mesh.py _reorder_locality) is
-tiled into contiguous windows of `s` nodes extended by `overlap` nodes
-on each side, every window's velocity submatrix is inverted as one
-batched `jnp.linalg.inv` (once per preconditioner build — the lagged-PC
-default makes that once per time step), and the application is a single
-row gather + one batched MXU matmul. Restricted means each window writes
-back only its owned center (Cai & Sarkis RAS) — measured better than
-full ASM averaging as a Krylov preconditioner and free of the 2x
-overlap-count scaling.
+sub_pc_type ilu). ILU's sequential triangular sweeps do not map onto
+wide batched hardware; this module delivers the same "strong local
+solve" ingredient in batched form: the Hilbert-ordered node axis
+(mesh/mesh.py _reorder_locality) is tiled into contiguous windows of
+`s` nodes extended by `overlap` nodes on each side, every window's
+velocity submatrix is inverted as one batched `jnp.linalg.inv` (once per
+preconditioner build — the lagged-PC default makes that once per time
+step), and the application is a single row gather + one batched matmul.
+Restricted means each window writes back only its owned center (Cai &
+Sarkis RAS) — measured better than full ASM averaging as a Krylov
+preconditioner and free of the 2x overlap-count scaling.
 
 Because consecutive Hilbert ids are spatial neighbours, an index-window
 IS a geometric subdomain; couplings whose endpoints lie in no common
 window are dropped from the local solves exactly as ASM drops
 off-process couplings.
 
-Cost model (v5e): the apply streams n_sub * (w*d)^2 values — ~5x the
-node-BSR A_uu bytes at (s=16, o=4, d=2) — but they stream at HBM speed
-as a batched dense matvec (500+ GB/s measured, PERF.md) and the gather
-is n/s rows of width w*d (wide rows are the fast gather regime).
+Cost model: the apply streams n_sub * (w*d)^2 values — ~5x the
+node-BSR A_uu bytes at (s=16, o=4, d=2) — as a batched dense matvec,
+and the gather is n/s rows of width w*d.
 """
 
 from __future__ import annotations

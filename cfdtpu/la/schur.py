@@ -7,7 +7,7 @@ SchurFactType.FULL with SchurPreType.SELFP — i.e. the Schur complement is
 preconditioned by S_p = A_pp - A_pu diag(A_uu)^{-1} A_up — with inner
 GMRES+ASM on the u-block and preonly+ASM on the pressure block.
 
-TPU-native realization: all four sub-blocks act through the element
+Realization: all four sub-blocks act through the element
 Jacobian blocks (gather -> batched matmul -> scatter); inner solves are
 fixed-iteration GMRES sweeps (flexible outer FGMRES absorbs their
 variability); the ASM sub-PCs become Jacobi diagonals of the sub-blocks.

@@ -1,18 +1,19 @@
-"""Supernode-blocked ELL sparse layout (the TPU gather-amortizing format).
+"""Supernode-blocked ELL sparse layout (the gather-amortizing format).
 
-Measured on TPU v5e (scripts/gather_shapes.py, readback-fenced timing):
-XLA's gather is per-ROW bound at ~0.2-0.5 Grow/s regardless of row width,
-so the way to a fast SpMV is FEWER, WIDER gathered rows. This module
-groups g consecutive node ids into one supernode; coupled supernode pairs
-own dense (g*bs, g*bs) blocks in an ELL layout, and the matvec gathers
+Premise: a gather whose cost is per ROW more than per byte is served
+best by FEWER, WIDER gathered rows. This module groups g consecutive
+node ids into one supernode; coupled supernode pairs own dense
+(g*bs, g*bs) blocks in an ELL layout, and the matvec gathers
 (g*bs)-wide rows of the supernode-major x — g*bs = 12 at g=4 in 2D,
-~6.4 Gelem/s vs 1.0 at the round-1 node-row width of 3.
+against the node-row width of 3. The premise was measured on earlier
+hardware; on the GPU the matvec is bandwidth-bound, and whether the
+layout still pays is open (ROADMAP A3, scripts/gather_shapes.py).
 
 The grouping only works on a locality-ordered mesh (consecutive ids =
 spatial neighbours): Mesh renumbers vertices along a Hilbert curve at
 construction (mesh/mesh.py _reorder_locality). Measured fill on the DFG
-mesh at g=4: 4.7x denser value storage than node-BSR — the trade is
-deliberate: values STREAM at HBM speed, gathers do not.
+mesh at g=4: 4.7x denser value storage than node-BSR — values are
+streamed, gathers are not.
 
 Replaces what PETSc gets from its AIJ/BAIJ formats + cache locality on
 CPUs (reference relies on PETSc MatMult inside every Krylov iteration,
@@ -110,7 +111,7 @@ class SuperMaps:
 
 def place_scalar(maps: SuperMaps, row, col, vals):
     """Scatter scalar COO values into the (ns, Kg, g, g) layout
-    (unique positions; jittable, ~2.7 ms per 500k entries on v5e)."""
+    (unique positions; jittable)."""
     pos = jnp.asarray(
         maps.scalar_positions(np.asarray(row), np.asarray(col))
         .astype(np.int32)

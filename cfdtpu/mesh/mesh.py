@@ -89,9 +89,9 @@ class Mesh:
         """Renumber vertices along a space-filling curve (Hilbert in 2D,
         Morton in 3D). Spatially-near nodes get near indices, which is
         what the supernode-blocked sparse layouts (la/superell.py) need:
-        the TPU gather cost is per-ROW, so grouping g consecutive node
-        ids into one gathered row only pays off when consecutive ids are
-        mesh neighbours. Deterministic; disable with CFDTPU_NO_REORDER=1."""
+        grouping g consecutive node ids into one gathered row only pays
+        off when consecutive ids are mesh neighbours. Deterministic;
+        disable with CFDTPU_NO_REORDER=1."""
         import os
 
         if os.environ.get("CFDTPU_NO_REORDER") or len(self.points) < 64:

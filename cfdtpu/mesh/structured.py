@@ -1,6 +1,6 @@
 """Structured mesh generators.
 
-TPU-native replacements for dolfinx create_unit_square / create_rectangle /
+JAX-side replacements for dolfinx create_unit_square / create_rectangle /
 create_box / create_unit_cube (reference usage:
 /root/reference/src/scenarios/lid_driven2D.py:30,
 /root/reference/src/scenarios/taylor_green.py,

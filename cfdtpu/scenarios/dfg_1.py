@@ -57,7 +57,7 @@ class DFG1Benchmark(Scenario):
         self.res_scale = float(res_scale)
         # independent ring/far sizing (geom/dfg.py defaults R/6, H/13):
         # a finer obstacle ring (res_min) sharpens c_L without the global
-        # DOF cost of res_scale (VERDICT round-2 accuracy item)
+        # DOF cost of res_scale
         self.res_min = None if res_min is None else float(res_min)
         self.res_max = None if res_max is None else float(res_max)
         self._dtype = resolve_dtype(dtype)

@@ -17,7 +17,7 @@ import subprocess
 from datetime import datetime
 from importlib import import_module
 from pathlib import Path
-from typing import Any, Optional, Type, Union
+from typing import Any, Callable, Optional, Type, Union
 
 from .scenarios.base import Scenario
 
@@ -208,7 +208,11 @@ class Simulation:
         return names or ["(none found)"]
 
     # ------------------------------------------------------------------
-    def run(self, save_path: Optional[Union[str, Path]] = None) -> str:
+    def run(
+        self,
+        save_path: Optional[Union[str, Path]] = None,
+        afterStepCallback: Optional[Callable[[float], None]] = None,
+    ) -> str:
         if save_path is None:
             stamp = datetime.now().strftime("%Y-%m-%dT%H.%M.%S")
             save_path = (
@@ -226,7 +230,9 @@ class Simulation:
         if not is_main_process():
             barrier("simulation-setup")
             self.scenario_instance.setup()
-            return self.scenario_instance.solve(output_folder=save_path)
+            return self.scenario_instance.solve(
+                output_folder=save_path, afterStepCallback=afterStepCallback
+            )
 
         os.makedirs(save_path, exist_ok=True)
         self._write_params(save_path)
@@ -238,7 +244,9 @@ class Simulation:
 
         barrier("simulation-setup")
         self.scenario_instance.setup()
-        result_path = self.scenario_instance.solve(output_folder=save_path)
+        result_path = self.scenario_instance.solve(
+            output_folder=save_path, afterStepCallback=afterStepCallback
+        )
         print(f"Simulation completed. Results saved to: {result_path}")
         return result_path
 

@@ -159,7 +159,7 @@ class Solver(IPCSSolver):
         # Jacobian blocks never exist unsharded anywhere).
         if self.n_shards:
             from jax.sharding import NamedSharding, PartitionSpec as P
-            from jax.experimental.shard_map import shard_map
+            from jax import shard_map
             from ..dist.partition import make_device_mesh, _pad_to
 
             S = self.n_shards

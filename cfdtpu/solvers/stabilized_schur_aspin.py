@@ -7,7 +7,7 @@ PETSc's ASPIN solves the nonlinearly-preconditioned system whose residual
 is the sum of per-subdomain local corrections (Cai & Keyes 2002), with
 inexact global Newton on top.
 
-TPU-native rebuild over the supernode subdomain machinery (la/asm.py):
+Rebuild over the supernode subdomain machinery (la/asm.py):
 
 1. Nonlinear additive-Schwarz pre-sweeps: x <- x - M_ASM(x) F(x),
    `aspin_sweeps` times per step, where M_ASM is the sum of local

@@ -4,7 +4,7 @@ Mirrors the reference BoundaryCondition API
 (/root/reference/src/boundaryCondition.py:14-55): wrap a prescribed value,
 bind it to dofs either topologically (boundary facet indices) or
 geometrically (coordinate marker), and support per-step re-evaluation for
-time-dependent values. In the TPU build a DirichletBC is just (dof indices,
+time-dependent values. Here a DirichletBC is just (dof indices,
 value array); values are recomputed on the host per step (tiny boundary
 data) and fed to the jitted solve as inputs, so time-varying BCs never
 trigger recompilation.

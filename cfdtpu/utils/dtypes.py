@@ -1,11 +1,13 @@
 """Precision policy.
 
-The reference runs PETSc in float64 everywhere. On TPU, float64 is
-emulated and slow; float32 is the native fast path and is sufficient for
-the engineering quantities (drag/lift, FFR, WSS) with looser Newton/Krylov
-tolerances. Policy: dtype="auto" resolves to float32 on accelerator
-backends and float64 on CPU; every scenario/solver accepts an explicit
-dtype override.
+The reference runs PETSc in float64 everywhere. dtype="auto" resolves to
+float64 on the CPU backend and to float32 on an accelerator, where it is
+sufficient for the engineering quantities (drag/lift, FFR, WSS) with the
+looser Newton/Krylov tolerances below. float64 is native on the H100 too;
+float32 stays the accelerator default because every record and
+tolerance so far is float32, and the choice is to be remade per
+benchmark cell from measurements (ROADMAP C6). Every scenario/solver
+accepts an explicit dtype override.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ def resolve_dtype(dtype) -> np.dtype:
     if dtype is None or dtype == "auto":
         import jax
 
-        backend = jax.default_backend()
-        return np.dtype(np.float64 if backend == "cpu" else np.float32)
+        cpu = jax.default_backend() == "cpu"
+        return np.dtype(np.float64 if cpu else np.float32)
     return np.dtype(dtype)
 
 

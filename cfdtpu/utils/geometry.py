@@ -1,9 +1,9 @@
 """Small-matrix geometry helpers.
 
 Explicit cofactor formulas for the 1x1/2x2/3x3 element Jacobians instead of
-jnp.linalg.inv/det: LU decomposition is unsupported for f64 on TPU and is
-overkill for these tiny batched matrices — cofactors are pure VPU
-elementwise math that XLA fuses into the surrounding kernel.
+jnp.linalg.inv/det: LU decomposition is overkill for these tiny batched
+matrices — cofactors are pure elementwise math that XLA fuses into the
+surrounding kernel.
 """
 
 from __future__ import annotations
@@ -65,19 +65,18 @@ def det_and_inv(J):
 class SortedScatter:
     """Scatter-add via sorted segment_sum.
 
-    jnp's .at[].add lowers to an XLA scatter, which serializes duplicate
-    indices on TPU; pre-sorting the contributions by destination dof and
-    using segment_sum(indices_are_sorted=True) turns global FEM assembly
-    into the TPU-native reduction pattern (SURVEY.md 7: "assembly =
-    vmapped quadrature + segment_sum").
+    jnp's .at[].add lowers to an XLA scatter with colliding indices;
+    pre-sorting the contributions by destination dof and using
+    segment_sum(indices_are_sorted=True) turns global FEM assembly into a
+    sorted reduction (SURVEY.md 7: "assembly = vmapped quadrature +
+    segment_sum").
 
-    On TPU even the sorted segment_sum dominates (measured 88% of the
-    node-BSR matvec at 355k blocks): when the max contributions per
-    destination K is small — always true for FEM valences — the scatter
-    is instead laid out as an ELL gather (n_out, K) into the padded
-    source and reduced densely over K, which XLA executes as vector
-    loads + adds with no scatter at all. Falls back to segment_sum for
-    pathological K.
+    When the max contributions per destination K is small — always true
+    for FEM valences — the scatter is instead laid out as an ELL gather
+    (n_out, K) into the padded source and reduced densely over K, which
+    XLA executes as vector loads + adds with no scatter at all, and with
+    a fixed summation order. Falls back to segment_sum for pathological
+    K.
     """
 
     ELL_MAX_K = 32

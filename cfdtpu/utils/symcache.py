@@ -12,10 +12,10 @@ persistent-compile-cache executables were traced against these maps.
 
 The reference leans on PETSc's C symbolic phases for the analogous maps
 (ILU/ASM structures, MatPtAP symbolic); here the maps are numpy and the
-cache removes their rebuild cost from the TPU campaign's flap-retry
-loop and from production restart latency alike.
+cache removes their rebuild cost from repeated runs and restarts.
 
-Disable with CFDTPU_SYM_CACHE='' (default dir /tmp/cfdtpu_sym_cache).
+Disable with CFDTPU_SYM_CACHE='' (default dir cfdtpu_sym_cache under
+the temporary directory, TMPDIR).
 """
 
 from __future__ import annotations
@@ -51,7 +51,10 @@ def cached_arrays(family: str, key_parts, build):
     build: () -> dict[str, np.ndarray | int | float]; scalars are
         stored as 0-d arrays and returned as python ints/floats.
     """
-    root = os.environ.get("CFDTPU_SYM_CACHE", "/tmp/cfdtpu_sym_cache")
+    root = os.environ.get(
+        "CFDTPU_SYM_CACHE",
+        os.path.join(tempfile.gettempdir(), "cfdtpu_sym_cache"),
+    )
     if not root:
         return build()
     path = os.path.join(root, f"{family}_{_digest(key_parts)}.npz")

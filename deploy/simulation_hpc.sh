@@ -1,8 +1,8 @@
 #!/bin/bash
 # Single-simulation SLURM job (analogue of the reference's
-# src/simulation_hpc.sh, which wrapped mpirun + singularity). On TPU
-# deployments one python process drives the chips; multihost pods set the
-# jax.distributed coordinator through the environment.
+# src/simulation_hpc.sh, which wrapped mpirun + singularity). One python
+# process drives the node's GPUs; multi-node runs add --distributed and
+# take the jax.distributed coordinator from the SLURM environment.
 #SBATCH --ntasks=1
 #SBATCH --time=12:00:00
 

@@ -49,8 +49,10 @@ def parse_unknown_args(tokens):
     return out
 
 
-def run_simulate(args, unknown):
-    """Run a single CFD simulation."""
+def make_simulation(args, unknown):
+    """Build the Simulation that `simulate` runs: the freeform
+    `--key value` pairs plus the optional physics flags that were given
+    are forwarded through Simulation -> Scenario -> Solver."""
     from cfdtpu.simulation import Simulation
 
     kwargs = parse_unknown_args(unknown)
@@ -64,18 +66,22 @@ def run_simulate(args, unknown):
     })
 
     print(f"Running simulation with extra args: {kwargs}")
+    return Simulation(
+        name=args.name,
+        simulation=args.simulation,
+        solver=args.solver,
+        T=args.T,
+        dt=args.dt,
+        output_dir=args.output_dir,
+        early_stop_tolerance=args.early_stop_tolerance,
+        **kwargs,
+    )
 
+
+def run_simulate(args, unknown):
+    """Run a single CFD simulation."""
     try:
-        sim = Simulation(
-            name=args.name,
-            simulation=args.simulation,
-            solver=args.solver,
-            T=args.T,
-            dt=args.dt,
-            output_dir=args.output_dir,
-            early_stop_tolerance=args.early_stop_tolerance,
-            **kwargs,
-        )
+        sim = make_simulation(args, unknown)
     except (ValueError, ImportError, RuntimeError) as e:
         label = {
             ValueError: "Invalid configuration",
@@ -107,7 +113,8 @@ _HPC_FLAGS = [
         action="store_true",
         help="Initialize jax.distributed (multi-process SPMD launch — "
              "the mpirun -n N analogue; auto-detects the cluster env "
-             "unless --coordinator/--num_processes/--process_id given)")),
+             "unless --coordinator/--num_processes/--process_id given; "
+             "each process of a host binds one local card)")),
     ("--coordinator", dict(default=None)),
     ("--num_processes", dict(type=int, default=None)),
     ("--process_id", dict(type=int, default=None)),
@@ -178,7 +185,7 @@ _TREE_FLAGS = [
 
 def build_parser():
     parser = argparse.ArgumentParser(
-        description="cfdtpu - TPU-native hemodynamic CFD - Unified CLI",
+        description="cfdtpu - hemodynamic CFD in JAX - Unified CLI",
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     hpc_parent = argparse.ArgumentParser(add_help=False)
@@ -227,6 +234,9 @@ def _dispatch_tree(args, unknown):
 
 
 def main():
+    from cfdtpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     parser = build_parser()
     args, unknown = parser.parse_known_args()
 

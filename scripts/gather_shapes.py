@@ -1,10 +1,12 @@
-"""Which gather shapes hit XLA's fast TPU path?
+"""Which gather shapes are fast on the current backend?
 
-Hypothesis from gather_micro.py + spmv_layouts.py: gather cost =
-~0.1-0.2 ms fixed per GATHER OP + fast streaming, so the SpMV must issue
-ONE big flat gather, not K*bs small ones; and the 2D row-gather
-(x[(n,K)] rows of (bs,)) used by the round-1 ELL matvec is on a slow
-path entirely.
+Hypothesis from spmv_layouts.py: gather cost = a fixed cost per GATHER
+OP + fast streaming, so the SpMV must issue ONE big flat gather, not
+K*bs small ones; and the 2D row-gather (x[(n,K)] rows of (bs,)) used by
+the round-1 ELL matvec may be on a slow path entirely. The supernode
+layout (la/superell.py) rests on the answer.
+
+Usage: python scripts/gather_shapes.py [n_nodes]
 """
 
 import sys

@@ -1,4 +1,4 @@
-"""PC-configuration sweep on the DFG bench at a given size (TPU).
+"""PC-configuration sweep on the DFG bench at a given size.
 
 Usage: python scripts/pc_sweep.py [res_scale]
 Each config rebuilds the scenario (mesh is regenerated; compile is the

@@ -1,10 +1,9 @@
-"""SpMV layout microbenchmark (TPU): where does the node-BSR matvec time go?
+"""SpMV layout microbenchmark: where does the node-BSR matvec time go?
 
-Round-1 PERF.md measured the assembled node-BSR ELL matvec at ~1.4 GB/s at
-160k DOF while the neighbour gather alone was only 0.3 ms — i.e. the
-bottleneck is NOT the gather but how XLA lays out the blocked einsum
-"nkab,nkb->na" on (n, K, bs, bs) arrays (bs = dim+1 = 3 in 2D): the minor
-dimensions are tiny, so every vector op runs at 3/128 lane utilization.
+Question: is the bottleneck of the assembled node-BSR ELL matvec the
+gather, or how XLA lays out the blocked einsum "nkab,nkb->na" on
+(n, K, bs, bs) arrays (bs = dim+1 = 3 in 2D), whose minor dimensions are
+tiny?
 
 This bench compares:
   aos   : the round-1 layout (n, K, bs, bs) + einsum           [baseline]

@@ -8,7 +8,7 @@ as CSVs, /root/reference/src/benchmark_data/lid_driven2D/). Prints one
 line per Re with the max/rms profile deviation for VALIDATION.md.
 
 Usage: python scripts/validate_ghia.py [Re ...]   (default: 100 400 1000)
-Grid/march defaults scale with Re; ~minutes per case on TPU.
+Grid/march defaults scale with Re.
 """
 
 import sys

@@ -1,9 +1,9 @@
 """Chunked element assembly (forms/navier_stokes.py::_map_in_chunks).
 
-Large meshes (the ~950k-DOF DFG run at 631k cells) OOM the TPU compile
-when the cell kernel is vmapped over the full mesh: the jacfwd temps are
-rank-5 with two tiny minor dims that TPU tiling pads ~19-28x. Chunking
-bounds those temps. These tests pin that the chunked path matches the
+Large meshes (the ~950k-DOF DFG run at 631k cells) need large compile
+temporaries when the cell kernel is vmapped over the full mesh: the
+jacfwd temps are rank-5 with two tiny minor dims. Chunking bounds those
+temps. These tests pin that the chunked path matches the
 single-vmap path to rounding (XLA fuses the two paths differently, so
 ~1e-17 reassociation noise is expected) for both the residual and the
 element Jacobians (incl. facet terms on the un-chunked boundary path).

@@ -144,7 +144,7 @@ def test_dfg_2d2_series_stats_reproduces_featflow():
 def test_pipe_cylinder_2d2_resume_appends_series(tmp_path):
     """A checkpointed 2D-2 run resumed mid-march must append to the
     incrementally-flushed force series (bdforces_partial.txt) so a
-    worker-flap-interrupted campaign keeps a contiguous series across
+    interrupted campaign keeps a contiguous series across
     legs (scripts/validate_dfg2d2.py resumability)."""
     import numpy as np
 
@@ -183,7 +183,7 @@ def test_pipe_cylinder_2d2_resume_reconciles_misaligned_series(tmp_path):
     otherwise the resumed leg re-records duplicate rows with time
     jumping backward, which breaks the zero-crossing Strouhal stats
     (flush cadence and checkpoint cadence are independent in a
-    flap-killed campaign leg)."""
+    killed campaign leg)."""
     import shutil
 
     import numpy as np

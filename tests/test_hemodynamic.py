@@ -152,42 +152,6 @@ def test_ipcs_midpoint_lid(tmp_path):
     assert abs(u).max() > 0.5
 
 
-def test_ipcs_assembled_matches_element():
-    """The assembled constant-operator path (node-block layout reusing
-    the BlockAMG level-0 placement) must reproduce the element-streaming
-    path bit-for-tolerance: same Krylov iteration counts, same fields.
-    Also exercises momentum_pc='amg' (BC-aware V-cycle PC)."""
-    from cfdtpu.scenarios.lid_driven2D import LidDriven2DSimulation
-
-    kw = dict(dt=0.005, T=1e9, mu=0.01, nx=10)
-
-    def run(**extra):
-        sc = LidDriven2DSimulation("ipcs_midpoint", **kw, **extra)
-        s = sc.solver
-        for _ in range(3):
-            s.solveStep()
-            s.u_prev, s.p_prev = s.u_sol, s.p_sol
-        return np.asarray(s.u_sol), dict(s.last_stats), s.assembled
-
-    u_el, st_el, a_el = run(assembled=False)
-    u_as, st_as, a_as = run(assembled=True)
-    assert not a_el and a_as
-    assert st_as["ksp_momentum"] == st_el["ksp_momentum"]
-    assert st_as["ksp_poisson"] == st_el["ksp_poisson"]
-    # identical iteration counts prove the assembled matvec is the same
-    # operator; the field tolerance only absorbs f32 reduction-order
-    # roundoff (different summation order in the two layouts)
-    rel = np.linalg.norm(u_as - u_el) / np.linalg.norm(u_el)
-    assert rel < 1e-5, rel
-
-    u_amg, st_amg, _ = run(assembled=True, momentum_pc="amg")
-    # the AMG-preconditioned momentum solve must not be WORSE than
-    # Jacobi and must land on the same trajectory within solver rtol
-    assert st_amg["ksp_momentum"] <= st_el["ksp_momentum"]
-    rel = np.linalg.norm(u_amg - u_el) / np.linalg.norm(u_el)
-    assert rel < 1e-2, rel
-
-
 def test_ipcs_bdf2_unit_square():
     from cfdtpu.scenarios.unit_square import UnitSquareSimulation
 

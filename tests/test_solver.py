@@ -360,8 +360,8 @@ def test_amg_default_solver_converges():
 
 
 def test_ghia_re400_profile():
-    """Ghia et al. Re=400 centerline validation (VERDICT round-2 weak
-    #8: only Re=100 of the three published profiles was recorded). A
+    """Ghia et al. Re=400 centerline validation (Re=100 alone would
+    leave two of the three published profiles unchecked). A
     coarse nx=32 BDF2 march to steady state must track the published
     profile within discretization error (~0.045 measured; the full-
     resolution campaign lives in scripts/validate_ghia.py)."""
@@ -373,7 +373,7 @@ def test_ghia_re400_profile():
     err = run(400, nx=32, dt=0.5, n_steps=60, quiet=True)
     # measured 0.0446 on CPU f64; 0.055 keeps ~20% headroom for backend
     # noise while catching a moderate regression (0.07 was 1.6x, loose
-    # enough to miss one — VERDICT round-3 weak #7)
+    # enough to miss one)
     assert err < 0.055
 
 

@@ -1,6 +1,6 @@
 """Convergence tests for the solver families untested in round 1:
 LSC x3, PCD x3, staggered, schur_stokes, vascularbc_strong, and the
-solvers_aux stokes/pressure modules (VERDICT.md round-1 weak #6).
+solvers_aux stokes/pressure modules.
 
 Each test steps the solver on a small lid/channel fixture (the pattern of
 tests/test_variants.py) and asserts convergence plus a physical sanity
